@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Whole-genome-scale fast-segmentation benchmark (not driver-run).
+"""Whole-genome-scale fast-segmentation benchmark on a GPU (not driver-run).
 
 Measures the batched fast-mode segmentation (models/segment.py::
 _segment_windows_fast) over an hg19-scale genome: 28.2M CpG sites cut into
 472 chunks of 60k sites, K=5 samples, max_cpg=1000 — the production shape of
 `wgbstools segment` genome-wide (ref: src/python/segment.py:96-110 runs one
-process per chunk; here chunks are vmapped onto the chip in batches and all
+process per chunk; here chunks are vmapped onto the GPU in batches and all
 launches are dispatched asynchronously, syncing once at the end).
 
 Env knobs: GEN_SITES (total sites), GEN_CHUNK (sites/chunk), GEN_BATCH
@@ -23,11 +23,6 @@ sys.path.insert(0, op.dirname(op.abspath(__file__)))
 
 import numpy as np
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    op.join(op.dirname(op.abspath(__file__)), ".jax_cache"),
-)
-
 TOTAL_SITES = int(os.environ.get("GEN_SITES", 28_217_448))  # hg19 nr_sites
 CHUNK = int(os.environ.get("GEN_CHUNK", 60_000))
 BATCH = int(os.environ.get("GEN_BATCH", 8))
@@ -38,14 +33,18 @@ PC = 15.0
 
 
 def main():
-    import jax
     import jax.numpy as jnp
 
+    from wgbs_tools_tpu.cli.main import ensure_compile_cache
+    from wgbs_tools_tpu.device import require_gpu
     from wgbs_tools_tpu.models.segment import (
         _prefix_sums,
         _segment_windows_masks,
     )
     from wgbs_tools_tpu.ops.pileup import fetch_chunked
+
+    require_gpu("bench_genome")
+    ensure_compile_cache()
 
     rng = np.random.default_rng(20260817)
     n_chunks = (TOTAL_SITES + CHUNK - 1) // CHUNK
@@ -71,7 +70,7 @@ def main():
     out = _segment_windows_masks(
         jnp.asarray(host_batches[0][0]), jnp.asarray(host_batches[0][1]),
         jnp.asarray(host_batches[0][2]), MAX_CPG, MAX_BP, PC)
-    np.asarray(out[:1, :1])
+    out.block_until_ready()
     print("[bench_genome] compiled")
 
     # timed: dispatch every launch asynchronously (host data cycles through

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Genome-wide segmentation four-way benchmark (VERDICT r4 item 2).
+"""Genome-wide segmentation four-way benchmark (GPU).
 
 Same workload for every row: K sample betas on disk over GEN_SITES CpG
 sites (hg19-scale by default), cut into 60k-site chunks — the production
@@ -10,10 +10,10 @@ sites (hg19-scale by default), cut into 60k-site chunks — the production
                 ref: src/python/segment.py:137-155)
   host_exact    our native C++ banded DP, chunks across ncores threads
                 (segment_ranges mode=exact — the shipped default)
-  device_fast   float32 whole-DP on the chip, windows batched
+  device_fast   float32 whole-DP on the GPU, windows batched
                 (mode=fast; ~95-97% border agreement)
   device_exact  bit-exact device path: band-clipped ll-table cost build +
-                batched software-double ring DP
+                batched float64 ring DP
                 (WGBS_TPU_SEGMENT_EXACT_DEVICE=1)
 
 host_exact and device_exact must produce identical borders (asserted).
@@ -30,10 +30,6 @@ import tempfile
 import time
 
 sys.path.insert(0, op.dirname(op.abspath(__file__)))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    op.join(op.dirname(op.abspath(__file__)), ".jax_cache"),
-)
 
 import numpy as np
 
@@ -64,8 +60,13 @@ def build_reference_segmentor(td):
 
 
 def main():
+    from wgbs_tools_tpu.cli.main import ensure_compile_cache
+    from wgbs_tools_tpu.device import require_gpu
     from wgbs_tools_tpu.formats.beta import save_beta
     from wgbs_tools_tpu.models.segment import SegmentConfig, segment_ranges
+
+    require_gpu("seg4")
+    ensure_compile_cache()
 
     rng = np.random.default_rng(20260821)
     log(f"generating K={K} betas over {N:,} sites (~{K*COV:.0f}x total), "

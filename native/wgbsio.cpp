@@ -627,170 +627,4 @@ void pat_pileup(const int32_t* start, const int32_t* length,
     for (auto& th : ts) th.join();
 }
 
-// ---------------------------------------------------------------------------
-// Row packing for the v3 pileup kernel: pieces (each inside one 128-site
-// sub-block) are bin-packed into shared kernel rows. Two pieces may share a
-// row iff they have the same sub-block g, the same repeat count (the row
-// count is a scalar multiplier in the kernel), and disjoint [rr, rr+len)
-// site intervals — enforced exactly with a 128-bit occupancy mask per row
-// (first-fit). Pieces must arrive grouped by ascending g (sorted pat order
-// guarantees it); rows come out grouped by g in creation order.
-// Returns n_rows (or -1 on bad input).
-int64_t pack_rows128(const int32_t* g, const int32_t* count,
-                     const int32_t* rr, const int32_t* len, int64_t n,
-                     int32_t* piece_row, int32_t* row_g, int32_t* row_count) {
-    struct Row {
-        uint64_t m0, m1;
-        int32_t idx;
-    };
-    // per-count open rows of the CURRENT g (counts are few distinct values;
-    // linear scan over classes is fine)
-    std::vector<int32_t> class_count;
-    std::vector<std::vector<Row>> class_rows;
-    int64_t n_rows = 0;
-    int32_t cur_g = n ? g[0] : 0;
-    for (int64_t i = 0; i < n; i++) {
-        if (g[i] < cur_g) return -1;  // not grouped
-        if (g[i] != cur_g) {
-            class_count.clear();
-            class_rows.clear();
-            cur_g = g[i];
-        }
-        const int32_t r0 = rr[i], ln = len[i];
-        if (r0 < 0 || ln <= 0 || r0 + ln > 128) return -1;
-        uint64_t m0 = 0, m1 = 0;
-        {
-            // bits [r0, r0+ln) across the two 64-bit halves
-            int lo = r0, hi = r0 + ln;
-            if (lo < 64) {
-                int h = hi < 64 ? hi : 64;
-                m0 = (h - lo == 64) ? ~0ULL : (((1ULL << (h - lo)) - 1) << lo);
-            }
-            if (hi > 64) {
-                int l2 = lo > 64 ? lo - 64 : 0;
-                int h2 = hi - 64;
-                m1 = (h2 - l2 == 64) ? ~0ULL
-                                     : (((1ULL << (h2 - l2)) - 1) << l2);
-            }
-        }
-        size_t cls = 0;
-        for (; cls < class_count.size(); cls++)
-            if (class_count[cls] == count[i]) break;
-        if (cls == class_count.size()) {
-            class_count.push_back(count[i]);
-            class_rows.emplace_back();
-        }
-        auto& rows = class_rows[cls];
-        int32_t target = -1;
-        for (auto& r : rows) {
-            if ((r.m0 & m0) == 0 && (r.m1 & m1) == 0) {
-                r.m0 |= m0;
-                r.m1 |= m1;
-                target = r.idx;
-                break;
-            }
-        }
-        if (target < 0) {
-            target = (int32_t)n_rows;
-            rows.push_back({m0, m1, target});
-            row_g[n_rows] = cur_g;
-            row_count[n_rows] = count[i];
-            n_rows++;
-        }
-        piece_row[i] = target;
-    }
-    return n_rows;
-}
-
-// Fused code placement + planar 2-bit packing for the v3 pileup staging.
-// Replaces the numpy rowmat scatter + planar_pack_cols pass (the two
-// dominant host-staging costs, ~1.1 s per 2M fragments): each packed
-// piece's codes are written straight into the per-row planar words.
-// Layout matches ops/pileup_tpu2.py::planar_pack_cols with w_cols = 8:
-// in-sub-block position pos -> word column pos % 8, bit 2 * (pos / 8).
-// words must be pre-filled with -1 (0b11 == '.' in every field).
-int64_t place_pack_rows(const uint8_t* codes, int64_t W, int64_t P,
-                        const int64_t* p_src, const int64_t* p_off,
-                        const int64_t* p_rr, const int64_t* p_len,
-                        const int32_t* piece_row, int32_t* words) {
-    constexpr int64_t W_COLS = 8;
-    for (int64_t p = 0; p < P; p++) {
-        const uint8_t* src = codes + p_src[p] * W + p_off[p];
-        int32_t* row = words + (int64_t)piece_row[p] * W_COLS;
-        const int64_t rr = p_rr[p], len = p_len[p];
-        if (rr < 0 || len < 0 || rr + len > 128) return -1;
-        for (int64_t j = 0; j < len; j++) {
-            const int64_t pos = rr + j;
-            const uint32_t s = (uint32_t)(2 * (pos >> 3));
-            int32_t* w = row + (pos & 7);
-            // unsigned word arithmetic: 3 << 30 on a signed literal is UB
-            // pre-C++20 (matches pack_rows128's mask handling)
-            const uint32_t wu =
-                ((uint32_t)*w & ~(3u << s)) | (((uint32_t)src[j] & 3u) << s);
-            *w = (int32_t)wu;
-        }
-    }
-    return P;
-}
-
-// Per-LANE repeat counts for the count-agnostic v3 row packing: write each
-// piece's count (< 256) into the 8-bit field of its lanes, 4 lanes per
-// int32 word (lane l -> word l%32, byte l/32 — mirroring the code layout's
-// word l%8 / field l/8). words must be zero-initialized ((R, 32) int32).
-int64_t place_counts_rows(const int32_t* p_cnt, const int32_t* p_rr,
-                          const int32_t* p_len, const int32_t* piece_row,
-                          int64_t P, int32_t* words) {
-    constexpr int64_t W_COLS = 32;
-    for (int64_t p = 0; p < P; p++) {
-        int32_t* row = words + (int64_t)piece_row[p] * W_COLS;
-        const int64_t rr = p_rr[p], len = p_len[p];
-        if (rr < 0 || len < 0 || rr + len > 128) return -1;
-        if (p_cnt[p] < 0 || p_cnt[p] > 255) return -1;
-        const uint32_t c = (uint32_t)p_cnt[p];
-        for (int64_t j = 0; j < len; j++) {
-            const int64_t pos = rr + j;
-            const uint32_t s = (uint32_t)(8 * (pos >> 5));
-            int32_t* w = row + (pos & 31);
-            const uint32_t wu = ((uint32_t)*w & ~(0xFFu << s)) | (c << s);
-            *w = (int32_t)wu;
-        }
-    }
-    return P;
-}
-
-// Pre-masked uint8 VALUE PLANES for the v3 value-plane staging: instead
-// of packed 2-bit codes + packed 8-bit counts (which the kernel must
-// unpack, compare and select every step), write the two dot operands the
-// kernel actually needs, one byte per lane: mv[pos] = count if the code
-// is a methylation call (C/H), cv[pos] = count if observed (not '.'),
-// else 0. Planes are (R, 128) uint8, ZERO-initialized by the caller
-// (zero == "no contribution", so padding needs no fill pass). Pieces
-// within a row occupy disjoint [rr, rr+len) ranges (pack_rows128's
-// first-fit invariant), so plain stores suffice. Counts must be < 256
-// (the lane/vals forms are gated off above that; return -1 restores the
-// classic path).
-int64_t place_vals_rows(const uint8_t* codes, int64_t W, int64_t P,
-                        const int64_t* p_src, const int64_t* p_off,
-                        const int64_t* p_rr, const int64_t* p_len,
-                        const int32_t* p_cnt, const int32_t* piece_row,
-                        uint8_t* mv, uint8_t* cv) {
-    for (int64_t p = 0; p < P; p++) {
-        const uint8_t* src = codes + p_src[p] * W + p_off[p];
-        const int64_t rr = p_rr[p], len = p_len[p];
-        if (rr < 0 || len < 0 || rr + len > 128) return -1;
-        if (p_cnt[p] < 0 || p_cnt[p] > 255) return -1;
-        const uint8_t c = (uint8_t)p_cnt[p];
-        uint8_t* mrow = mv + (int64_t)piece_row[p] * 128;
-        uint8_t* crow = cv + (int64_t)piece_row[p] * 128;
-        for (int64_t j = 0; j < len; j++) {
-            const uint8_t code = src[j] & 3u;
-            if (code == 3u) continue;  // '.' — unobserved, leave 0
-            const int64_t pos = rr + j;
-            crow[pos] = c;
-            if (code != 0u) mrow[pos] = c;  // codes 1 (C) and 2 (H)
-        }
-    }
-    return P;
-}
-
 }  // extern "C"

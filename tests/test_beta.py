@@ -67,3 +67,42 @@ def test_merge_betas(tmp_path, rng):
     merged = merge_betas([pa, pb], out)
     assert (merged == trim_to_uint(a + b)).all()
     assert (load_beta(out) == merged).all()
+
+
+def test_tsv_lines_match_python_formatting():
+    """The vectorized text writer of `view` (beta) formats like f-strings:
+    zero, powers of ten, the widest value, any chromosome name."""
+    from wgbs_tools_tpu.cli.view import _int_field, _name_field, tsv_lines
+
+    rng = np.random.default_rng(8)
+    v = np.concatenate([[0, 9, 10, 99, 100, 1, 3_000_000_000],
+                        rng.integers(0, 10 ** 9, 2000)])
+    c = rng.integers(0, 3, v.shape[0])
+    names = ["chr1", "chr22", "chrX"]
+    got = tsv_lines([_name_field(c, names), _int_field(v),
+                     _int_field(v % 256)]).decode()
+    assert got == "".join(f"{names[a]}\t{b}\t{b % 256}\n"
+                          for a, b in zip(c, v))
+    with pytest.raises(ValueError):
+        _int_field(np.array([3, -1]))
+
+
+def test_view_beta_text_rows(mini_genome, tmp_path):
+    """view of a beta == the per-row rule `chr  loc-1  loc+1  meth  cov`."""
+    import io
+
+    from wgbs_tools_tpu.cli.view import view_beta_text
+
+    idx = mini_genome.index
+    rng = np.random.default_rng(9)
+    cov = rng.integers(0, 40, idx.nr_sites)
+    p = str(tmp_path / "v.beta")
+    save_beta(p, np.stack([rng.binomial(cov, 0.3), cov], axis=1))
+    data = load_beta(p)
+    out = io.StringIO()
+    view_beta_text(p, mini_genome, out=out)
+    cids = idx.site2chrom_id(np.arange(1, idx.nr_sites + 1))
+    want = "".join(
+        f"{idx.chrom_names[c]}\t{l - 1}\t{l + 1}\t{m}\t{t}\n"
+        for c, l, (m, t) in zip(cids, idx.loci.tolist(), data.tolist()))
+    assert out.getvalue() == want

@@ -1,6 +1,7 @@
 """End-to-end CLI smoke + correctness tests over the mini genome."""
 
 import gzip
+import os
 import os.path as op
 
 import numpy as np
@@ -328,3 +329,32 @@ def test_segment_gz_output_indexed(workdir, mini_genome, tmp_path):
     assert cli_main(args + ["-o", gz]) == 0
     assert op.isfile(gz) and op.isfile(gz + ".tbi")
     assert decompress_file(gz) == open(plain, "rb").read()
+
+
+def test_compile_cache_env_wins(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: JAX uses it and nothing is changed."""
+    import jax
+
+    from wgbs_tools_tpu.cli.main import compile_cache_dir, ensure_compile_cache
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    ensure_compile_cache()
+    assert calls == [] and compile_cache_dir() == str(tmp_path / "c")
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    """Unset: the cache is `.jax_cache` at the root of the checkout."""
+    import jax
+
+    from wgbs_tools_tpu.cli.main import ensure_compile_cache
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    ensure_compile_cache()
+    root = op.dirname(op.dirname(op.abspath(__file__)))
+    assert calls == [("jax_compilation_cache_dir",
+                      op.join(root, ".jax_cache"))]
+    assert op.isdir(op.join(root, ".jax_cache"))

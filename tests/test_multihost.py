@@ -355,3 +355,51 @@ def test_bam2pat_procs_bai_ranged_decode(tmp_path, mini_genome):
     with gzip.open(multi_pat) as f:
         got = f.read()
     assert got == want
+
+
+@pytest.mark.parametrize("nproc", [1, 2, 4])
+def test_worker_plan_binds_one_card_per_process(monkeypatch, nproc):
+    """On a GPU host process i gets card i alone, and no CPU emulation."""
+    from wgbs_tools_tpu.parallel import multihost
+
+    monkeypatch.setattr(multihost, "visible_gpus", lambda: ["0", "1", "2",
+                                                            "3"])
+    plan = multihost.worker_plan(nproc)
+    assert [env for env, _ in plan] == [{"CUDA_VISIBLE_DEVICES": str(i)}
+                                        for i in range(nproc)]
+    assert all(args == [] for _, args in plan)
+
+
+def test_worker_plan_refuses_more_processes_than_cards(monkeypatch):
+    from wgbs_tools_tpu.parallel import multihost
+    from wgbs_tools_tpu.utils import IllegalArgumentError
+
+    monkeypatch.setattr(multihost, "visible_gpus", lambda: ["0", "1"])
+    with pytest.raises(IllegalArgumentError, match="exceeds the 2 GPU"):
+        multihost.worker_plan(3)
+
+
+def test_worker_plan_cpu(monkeypatch):
+    """CPU emulation only when asked for; a GPU-less host runs plain CPU
+    workers."""
+    from wgbs_tools_tpu.parallel import multihost
+
+    monkeypatch.setattr(multihost, "visible_gpus", lambda: ["0", "1"])
+    plan = multihost.worker_plan(2, local_devices=3)
+    assert plan == [({"JAX_PLATFORMS": "cpu"},
+                     ["--platform", "cpu", "--local_devices", "3"])] * 2
+    monkeypatch.setattr(multihost, "visible_gpus", lambda: [])
+    assert multihost.worker_plan(2) == [({"JAX_PLATFORMS": "cpu"},
+                                         ["--platform", "cpu"])] * 2
+
+
+def test_visible_gpus_without_opening_a_card(monkeypatch):
+    from wgbs_tools_tpu.parallel.multihost import visible_gpus
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2,3")
+    assert visible_gpus() == ["2", "3"]
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert visible_gpus() == []
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    assert visible_gpus() == []

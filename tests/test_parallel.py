@@ -145,15 +145,15 @@ def test_sharded_pileup_streaming_matches_xla(rng, tmp_path):
 
 
 def test_sharded_pileup_v3_streaming_matches_xla(rng):
-    """ShardedPileupV3 (v3 Pallas kernel per shard, boundary-clipped, no
-    halo) over streamed chunks == one-shot single-device pileup, and ==
-    the halo-exchange ShardedPileup."""
+    """ShardedPileupV3 (XLA scatter per shard, boundary-clipped, no halo)
+    over streamed chunks == one-shot single-device pileup, and == the
+    halo-exchange ShardedPileup."""
     from wgbs_tools_tpu.parallel.sharded import ShardedPileup, ShardedPileupV3
 
     n_sites = 40000
     frags = random_frags(rng, 5000, n_sites - 50, max_len=18).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="pallas3")
+    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="xla")
     ref = ShardedPileup(mesh, (1, n_sites + 1), halo=32, fp_mult=64)
     bounds = [0, 700, 1100, 2500, frags.nr_frags]
     for a, b in zip(bounds[:-1], bounds[1:]):
@@ -178,7 +178,7 @@ def test_sharded_pileup_v3_uneven_tail(rng):
     n_sites = 40000 - 1234
     frags = random_frags(rng, 3000, n_sites - 30, max_len=12).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="pallas3")
+    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="xla")
     acc.add(frags)
     expect = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
                         1, n_sites)
@@ -295,3 +295,21 @@ def test_sharded_pileup_finalize_exact(rng):
         got = acc.finalize(lbeta)
         assert got.dtype == ref.dtype
         assert np.array_equal(ref, got)
+
+
+def test_sharded_pileup_replicated_samples_axis(rng):
+    """On a (samples=2, sites=4) mesh the count table is replicated over
+    samples: the per-shard fetch and saturation take each row range once."""
+    from wgbs_tools_tpu.formats.beta import trim_to_uint
+    from wgbs_tools_tpu.parallel.sharded import ShardedPileup
+
+    n_sites = 20000
+    frags = random_frags(rng, 3000, n_sites - 30, max_len=12).sort().collapse()
+    acc = ShardedPileup(make_mesh(8, samples_axis=2), (1, n_sites + 1),
+                        halo=32, fp_mult=64)
+    acc.add(frags)
+    expect = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
+                        1, n_sites)
+    assert np.array_equal(acc.result(), expect)
+    assert np.array_equal(acc.finalize(False),
+                          trim_to_uint(expect.astype(np.int64), False))

@@ -234,3 +234,75 @@ def test_native_accumulator_matches_host(rng):
     a_nat.add(shuf)
     assert np.array_equal(a_ref.result(), a_nat.result())
     assert np.array_equal(a_ref.finalize(), a_nat.finalize())
+
+
+def _frags(starts, lengths, counts, codes):
+    from wgbs_tools_tpu.formats.pat import PatFrags
+
+    n = len(starts)
+    return PatFrags(np.asarray(starts, np.int32), np.asarray(lengths, np.int32),
+                    np.asarray(counts, np.int32), np.asarray(codes, np.uint8),
+                    np.zeros(n, np.int16), ["chr1"], None)
+
+
+def _boundary_crossers(rng):
+    # heterogeneous counts (one past 2^16) on fragments straddling
+    # power-of-two site boundaries
+    from wgbs_tools_tpu.formats.pat import CODE_C
+
+    starts = [120, 125, 126, 127, 128, 1020, 1023, 1024, 2047, 2048]
+    return (_frags(starts, [10] * 10, [1, 7, 1, 250000, 1, 2, 2, 1, 3, 1],
+                   np.full((10, 10), CODE_C)), 1, 3072)
+
+
+def _dense(rng, count_lo, count_hi):
+    F = 3000
+    lengths = rng.integers(1, 30, size=F)
+    codes = rng.integers(0, 4, size=(F, 30))
+    codes[np.arange(30)[None] >= lengths[:, None]] = 3
+    return (_frags(np.sort(rng.integers(1, 200, size=F)), lengths,
+                   rng.integers(count_lo, count_hi, size=F), codes), 1, 1024)
+
+
+PILEUP_CASES = {
+    "small": lambda r: (random_frags(r, 400, 2000, max_len=12, h_rate=0.05),
+                        1, 2000),
+    "multi_batch": lambda r: (random_frags(r, 9000, 5000, max_len=20,
+                                           dot_rate=0.1), 1, 5000),
+    "offset_window": lambda r: (random_frags(r, 2000, 6000, max_len=16),
+                                2500, 2048),
+    "long_fragments": lambda r: (random_frags(r, 300, 9000, max_len=400),
+                                 1, 9000),
+    "counts_past_255": lambda r: (random_frags(r, 300, 4000, max_len=10,
+                                               max_count=3000, dot_rate=0.1,
+                                               h_rate=0.05), 1, 4000),
+    "boundary_crossers": _boundary_crossers,
+    "dense_overlap": lambda r: _dense(r, 1, 4),
+    "dense_counts_near_255": lambda r: _dense(r, 200, 256),
+    "sparse": lambda r: (random_frags(r, 60, 50000, max_len=10), 1, 50000),
+    "single_fragment": lambda r: (random_frags(r, 1, 1500, max_len=5),
+                                  1, 1500),
+    "empty": lambda r: (_frags([], [], [], np.zeros((0, 4))), 1, 1500),
+    "window_inside": lambda r: (random_frags(r, 500, 3000, max_len=10),
+                                1000, 500),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PILEUP_CASES))
+def test_pileup_scenarios(case):
+    """XLA scatter (the GPU path) == host C++ kernel == the numpy loop over
+    stdin2beta.cpp's rule, on scenarios that stress batching, window
+    edges, long fragments, high counts and deep overlap (batch=4096 makes
+    the larger cases span several padded launches)."""
+    from wgbs_tools_tpu.native import get_lib, pileup_native
+
+    rng = np.random.default_rng(sorted(PILEUP_CASES).index(case) + 31)
+    frags, ws, wl = PILEUP_CASES[case](rng)
+    expect = numpy_pileup(frags, ws, ws + wl)
+    got = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
+                     ws, wl, batch=4096)
+    assert got.shape == (wl, 2) and np.array_equal(got, expect)
+    if get_lib() is not None:
+        nat = pileup_native(frags.start, frags.length, frags.count,
+                            frags.codes, ws, wl, threads=1)
+        assert np.array_equal(nat, expect)

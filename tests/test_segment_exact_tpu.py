@@ -1,6 +1,6 @@
 """Device exact-parity segmentation (models/segment_exact_tpu.py): the
-software-double DP's traceback must equal the host exact path bit-for-bit
-— same borders on every input, not statistically close."""
+float64 DP's traceback must equal the host exact path bit-for-bit — same
+borders on every input, not statistically close."""
 
 import numpy as np
 import pytest
@@ -115,6 +115,9 @@ def test_segment_borders_env_routes_to_device(monkeypatch):
     rng = np.random.default_rng(81)
     data, loci = _rand_window(rng, 2, 300, 8)
     want = segment_borders(data, loci, max_cpg=48, max_bp=2000, mode="exact")
+    from wgbs_tools_tpu.models import segment as seg_mod
+
+    monkeypatch.setattr(seg_mod, "DEVICE_EXACT_MIN_SITES", 2)
     monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "1")
     got = segment_borders(data, loci, max_cpg=48, max_bp=2000, mode="exact")
     assert np.array_equal(got, want)
@@ -163,6 +166,30 @@ def test_segment_ranges_exact_device(monkeypatch, tmp_path):
     cfg = SegmentConfig(max_cpg=32, max_bp=2000, chunk_size=400,
                         mode="exact", threads=1)
     want = segment_ranges(paths, [(1, n + 1)], idx, cfg)
+    from wgbs_tools_tpu.models import segment as seg_mod
+
+    monkeypatch.setattr(seg_mod, "DEVICE_EXACT_MIN_SITES", 2)
     monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "1")
     got = segment_ranges(paths, [(1, n + 1)], idx, cfg)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("K,n,cov_hi,W,max_bp", [
+    (3, 2000, 20, 200, 2000),   # ~30x K=3, the production shape scaled down
+    (1, 1500, 60, 128, 1000),   # high coverage, one dataset
+    (4, 1200, 6, 256, 0),       # no bp cap: full-width band
+    (2, 1800, 2, 96, 2000),     # near-empty coverage: exact-tie stretches
+])
+def test_f64_device_T_equals_native_cpp(K, n, cov_hi, W, max_bp):
+    """The float64 device DP (under scoped x64) reproduces the C++ kernel
+    (native/segment_exact.cpp) bit-for-bit: same traceback, every site."""
+    from wgbs_tools_tpu.native import segment_exact_native
+
+    rng = np.random.default_rng(1000 * K + n)
+    data, loci = _rand_window(rng, K, n, cov_hi)
+    T_nat = segment_exact_native(data, loci, W, max_bp, 15.0)
+    if T_nat is None:
+        pytest.skip("native library unavailable")
+    T_dev = segment_exact_device_T(data, loci, W, max_bp, 15.0)
+    assert np.array_equal(T_dev[1:], T_nat[1:]), \
+        np.flatnonzero(T_dev[1:] != T_nat[1:])[:10]

@@ -1,6 +1,6 @@
 """Persistent worker mode (cli/worker.py): a long-lived process serves CLI
-invocations over a unix socket — the fix for per-process device compile
-cost (Mosaic executables are not persisted by the backend's cache)."""
+invocations over a unix socket, so per-process start-up and device
+initialization are paid once."""
 
 import os
 import os.path as op
@@ -83,3 +83,32 @@ def test_worker_run_without_server():
         capture_output=True, timeout=60)
     assert r.returncode == 1
     assert b"no worker running" in r.stderr
+
+
+def test_stale_socket_runs_in_process(tmp_path):
+    """A socket file nobody listens on: no worker, so in-process is safe."""
+    import socket
+
+    from wgbs_tools_tpu.cli.worker import run_via_worker
+
+    path = str(tmp_path / "stale.sock")
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.bind(path)
+    s.close()
+    assert run_via_worker(["view", "--help"], path=path) is None
+
+
+def test_unreachable_worker_refuses(tmp_path, monkeypatch, capsys):
+    """A worker that exists but cannot take the connection: refuse (rc 1)
+    rather than open the card it holds in this process."""
+    import socket
+
+    from wgbs_tools_tpu.cli.worker import run_via_worker
+
+    def busy(self, addr):
+        raise BlockingIOError(11, "Resource temporarily unavailable")
+
+    monkeypatch.setattr(socket.socket, "connect", busy)
+    assert run_via_worker(["view", "--help"],
+                          path=str(tmp_path / "w.sock")) == 1
+    assert "holds the device" in capsys.readouterr().err

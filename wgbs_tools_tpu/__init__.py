@@ -1,12 +1,12 @@
-"""wgbs_tools_tpu — a TPU-native engine for WGBS/bisulfite/nanopore methylation data.
+"""wgbs_tools_tpu — a GPU-accelerated engine for WGBS/bisulfite/nanopore methylation data.
 
 A from-scratch re-design of the capabilities of nloyfer/wgbs_tools
 (reference layout surveyed in /root/repo/SURVEY.md): pat/beta file formats over a
 CpG-index coordinate system, BAM -> pat conversion, pileup (pat2beta), block
 reductions, fragment-state (U/X/M) counting, change-point segmentation, and
-marker discovery — with the hot loops implemented as JAX/XLA/Pallas kernels and
-scaled over TPU device meshes, instead of the reference's Unix-pipe C++ stream
-filters.
+marker discovery — with the hot loops implemented as JAX/XLA device programs
+(or host C++ kernels when no GPU is present) and scaled over device meshes,
+instead of the reference's Unix-pipe C++ stream filters.
 
 Subpackages
 -----------

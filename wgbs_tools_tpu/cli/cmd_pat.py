@@ -38,12 +38,13 @@ def main_pat2beta(argv):
     p.add_argument("-l", "--lbeta", action="store_true")
     p.add_argument("--genome", default=None)
     p.add_argument("-@", "--threads", type=int, default=None,
-                   help="(compat; the pileup is one device kernel launch)")
+                   help="(compat; the pileup runs on the GPU, or in "
+                        "the multithreaded host kernel without one)")
     p.add_argument("--procs", type=int, default=None,
-                   help="run as N jax.distributed processes (emulated "
-                        "multi-host: per-process input sharding by site "
-                        "range, cross-process collectives; byte-identical "
-                        "to the single-process path)")
+                   help="run as N jax.distributed processes, one per GPU "
+                        "on a GPU host (per-process input sharding by site "
+                        "range; byte-identical to the single-process "
+                        "path)")
     args = p.parse_args(argv)
     g = Genome(args.genome)
     for pat in args.pat_paths:

@@ -35,15 +35,14 @@ def main(argv):
                         "the device instead")
     p.add_argument("--mode", choices=["exact", "fast"], default="exact",
                    help="'exact' matches the reference segmentor bit-for-bit "
-                        "(native C++ DP, threaded over chunks); 'fast' runs "
-                        "the whole DP on the TPU in float32 — several times "
-                        "faster again, but ~3-5%% of borders may differ at "
-                        "numerical ties")
+                        "(float64 DP on the GPU, else the native C++ DP "
+                        "threaded over chunks); 'fast' runs the whole DP "
+                        "on the device in float32, but ~3-5%% of borders "
+                        "may differ at numerical ties")
     p.add_argument("-o", "--out_path", default=None)
     p.add_argument("--procs", type=int, default=None,
                    help="segment chunks across N jax.distributed processes "
-                        "(emulated multi-host on one machine; on a pod each "
-                        "host runs one worker)")
+                        "(one per GPU on a GPU host; at most one per card)")
     args = p.parse_args(argv)
 
     if args.betas:

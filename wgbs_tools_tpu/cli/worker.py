@@ -1,13 +1,14 @@
 """Persistent worker: one long-lived process serves many CLI invocations.
 
 Why: the reference has no compile step — its binaries are compiled once at
-install (ref: setup.py:41-69) and every process starts cold in ~0 s. Our
-device paths pay an XLA/Mosaic compile per fresh process; the persistent
-compilation cache (cli/main.py::ensure_compile_cache) eliminates that for
-plain-XLA executables, but Pallas/Mosaic kernels are not persisted by the
-backend (measured — no cache entries are written for them). The worker is
-the remaining fix: compiles live as long as the worker process, so the
-second and every later invocation of a device job starts warm.
+install (ref: setup.py:41-69) and every process starts cold in ~0 s. A
+fresh process of ours pays JAX start-up, device initialization and the
+load of its compiled programs from the persistent compilation cache
+(cli/main.py::ensure_compile_cache) before its first device step. The
+worker pays them once: loaded executables and the device client live as
+long as the worker process, so every later invocation starts warm. It
+also keeps one process on the card, which the card needs (a JAX process
+reserves most of the device memory when it starts).
 
 Usage:
     wgbstools-tpu worker serve [--socket PATH]     # long-lived server
@@ -22,13 +23,15 @@ length + payload — and the client replays frames onto its own streams and
 exits with the command's return code. stdin is not forwarded.
 
 Concurrency: requests are served STRICTLY ONE AT A TIME (device state —
-compiled executables, the one TPU chip — is process-global, so serializing
-is the correct semantics, not a shortcut). Additional clients queue in the
-socket's accept backlog (depth 8) and block until the running request
-finishes; beyond that, connect() fails and the CLI falls back to in-process
-execution. Trust model: the socket is protected only by filesystem
-permissions on its directory (0700 ~/.cache/wgbs_tpu by default) — do not
-point WGBS_TPU_WORKER_SOCKET at a world-writable directory.
+compiled executables, the card's memory — is process-global, so
+serializing is the correct semantics, not a shortcut). Additional clients
+queue in the socket's accept backlog (depth 8) and block until the running
+request finishes. A client falls back to in-process execution only when no
+worker is listening; when a worker exists but cannot be reached, the
+client refuses rather than open the card the worker holds. Trust model:
+the socket is protected only by filesystem permissions on its directory
+(0700 ~/.cache/wgbs_tpu by default) — do not point WGBS_TPU_WORKER_SOCKET
+at a world-writable directory.
 """
 
 import argparse
@@ -136,9 +139,8 @@ def _serve_one(conn):
 
 
 def _warm_compiles():
-    """Trigger the device pileup compile on a tiny synthetic batch so the
-    FIRST client job starts warm (Mosaic executables are not persisted by
-    the backend's cache — this is the worker's whole reason to exist)."""
+    """Run the device pileup once on a tiny synthetic batch so the FIRST
+    client job finds its executable loaded."""
     import numpy as np
 
     from ..ops.pileup import pileup_frags
@@ -171,10 +173,7 @@ def serve(path=None, warm=False):
     ensure_compile_cache()
     if warm:
         logger.info("worker: warming device compiles...")
-        try:
-            _warm_compiles()
-        except Exception as e:
-            logger.info("worker: warmup skipped (%s)", e)
+        _warm_compiles()
     logger.info("worker: serving on %s (pid %d)", path, os.getpid())
     try:
         while True:
@@ -197,14 +196,21 @@ def serve(path=None, warm=False):
 
 def run_via_worker(argv, path=None, stop=False):
     """Client: run argv on the worker; returns its rc, or None when no
-    worker is reachable (caller falls back to in-process execution)."""
+    worker is listening (the caller then runs in-process). A worker that
+    exists but cannot be reached gets rc 1 and a message: running
+    in-process then would open the card the worker holds."""
     path = path or socket_path()
     s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     try:
         s.connect(path)
-    except OSError:
+    except (FileNotFoundError, ConnectionRefusedError):
         s.close()
         return None
+    except OSError as e:
+        s.close()
+        print(f"worker at {path} is busy or unreachable ({e}); not running "
+              "in-process while it holds the device", file=sys.stderr)
+        return 1
     req = {"argv": argv, "cwd": os.getcwd(), "stop": stop,
            "env": {k: v for k, v in os.environ.items()
                    if k.startswith("WGBS_")}}

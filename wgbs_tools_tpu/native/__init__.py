@@ -80,18 +80,6 @@ def _bind_symbols(lib):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         i64, i64, i64, i64, ctypes.c_void_p, ctypes.c_int,
     ]
-    lib.pack_rows128.restype = i64
-    lib.pack_rows128.argtypes = [ctypes.c_void_p] * 4 + [i64] \
-        + [ctypes.c_void_p] * 3
-    lib.place_pack_rows.restype = i64
-    lib.place_pack_rows.argtypes = [ctypes.c_void_p, i64, i64] \
-        + [ctypes.c_void_p] * 6
-    lib.place_counts_rows.restype = i64
-    lib.place_counts_rows.argtypes = [ctypes.c_void_p] * 4 + [i64] \
-        + [ctypes.c_void_p]
-    lib.place_vals_rows.restype = i64
-    lib.place_vals_rows.argtypes = [ctypes.c_void_p, i64, i64] \
-        + [ctypes.c_void_p] * 8
 
 
 def _ptr(arr, ctype):
@@ -106,7 +94,7 @@ def parse_pat_native(data: bytes, threads=None):
     the C calls), each range writing its rows directly into the shared
     output at its prefix offset; per-range chromosome tables merge in
     range order, which equals first-appearance order over the whole
-    buffer. Measured ~3.5x on the 20M-fragment decode path."""
+    buffer."""
     lib = get_lib()
     if lib is None or not data:
         return None
@@ -392,105 +380,6 @@ def segment_exact_native(data, loci, max_cpg, max_bp, pseudo_count):
     if rc != 0:
         return None
     return T.astype(np.int64)
-
-
-def pack_rows_native(g, count, rr, ln):
-    """First-fit 128-bit-mask interval packing for the v3 pileup staging.
-
-    Pieces grouped by ascending sub-block g; same-(g, count) pieces with
-    disjoint [rr, rr+len) share a kernel row. Returns (piece_row int32[n],
-    row_g int32[R], row_count int32[R]) or None when unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    g = np.ascontiguousarray(g, dtype=np.int32)
-    count = np.ascontiguousarray(count, dtype=np.int32)
-    rr = np.ascontiguousarray(rr, dtype=np.int32)
-    ln = np.ascontiguousarray(ln, dtype=np.int32)
-    n = g.shape[0]
-    piece_row = np.empty(max(n, 1), dtype=np.int32)
-    row_g = np.empty(max(n, 1), dtype=np.int32)
-    row_count = np.empty(max(n, 1), dtype=np.int32)
-    nr = lib.pack_rows128(
-        g.ctypes.data, count.ctypes.data, rr.ctypes.data, ln.ctypes.data,
-        ctypes.c_int64(n), piece_row.ctypes.data, row_g.ctypes.data,
-        row_count.ctypes.data)
-    if nr < 0:
-        return None
-    nr = int(nr)
-    return piece_row[:n], row_g[:nr], row_count[:nr]
-
-
-def place_pack_native(codes, p_src, p_off, p_rr, p_len, piece_row, words):
-    """Fused code placement + planar 2-bit packing into the (R, 8) int32
-    word matrix (pre-filled with -1 == all '.'). Returns the piece count or
-    None when the library is unavailable / input invalid."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    codes = np.ascontiguousarray(codes, dtype=np.uint8)
-    p_src = np.ascontiguousarray(p_src, dtype=np.int64)
-    p_off = np.ascontiguousarray(p_off, dtype=np.int64)
-    p_rr = np.ascontiguousarray(p_rr, dtype=np.int64)
-    p_len = np.ascontiguousarray(p_len, dtype=np.int64)
-    piece_row = np.ascontiguousarray(piece_row, dtype=np.int32)
-    assert words.dtype == np.int32 and words.flags.c_contiguous
-    got = lib.place_pack_rows(
-        codes.ctypes.data, ctypes.c_int64(codes.shape[1]),
-        ctypes.c_int64(p_src.shape[0]), p_src.ctypes.data,
-        p_off.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
-        piece_row.ctypes.data, words.ctypes.data)
-    return None if got < 0 else int(got)
-
-
-def place_counts_native(p_cnt, p_rr, p_len, piece_row, cnt_words):
-    """Per-lane repeat counts for the count-agnostic v3 packing: write each
-    piece's count (< 256) into its lanes' 8-bit fields of the (R, 32)
-    int32 word matrix (zero-initialized by the caller). Returns the piece
-    count, or None when the library is unavailable / a count exceeds 255
-    (the caller then stays on the per-count-row classic path)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    p_cnt = np.ascontiguousarray(p_cnt, dtype=np.int32)
-    p_rr = np.ascontiguousarray(p_rr, dtype=np.int32)
-    p_len = np.ascontiguousarray(p_len, dtype=np.int32)
-    piece_row = np.ascontiguousarray(piece_row, dtype=np.int32)
-    assert cnt_words.dtype == np.int32 and cnt_words.flags.c_contiguous
-    got = lib.place_counts_rows(
-        p_cnt.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
-        piece_row.ctypes.data, ctypes.c_int64(p_cnt.shape[0]),
-        cnt_words.ctypes.data)
-    return None if got < 0 else int(got)
-
-
-def place_vals_native(codes, p_src, p_off, p_rr, p_len, p_cnt, piece_row,
-                      mv, cv):
-    """Pre-masked uint8 value planes for the v3 value-plane staging: write
-    each piece's count into mv (where the code is a methylation call) and
-    cv (where observed) at its lane positions of the (R, 128) uint8 planes
-    (zero-initialized by the caller). Returns the piece count, or None
-    when the library is unavailable / a count exceeds 255 (the caller then
-    stays on the packed-words path)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    codes = np.ascontiguousarray(codes, dtype=np.uint8)
-    p_src = np.ascontiguousarray(p_src, dtype=np.int64)
-    p_off = np.ascontiguousarray(p_off, dtype=np.int64)
-    p_rr = np.ascontiguousarray(p_rr, dtype=np.int64)
-    p_len = np.ascontiguousarray(p_len, dtype=np.int64)
-    p_cnt = np.ascontiguousarray(p_cnt, dtype=np.int32)
-    piece_row = np.ascontiguousarray(piece_row, dtype=np.int32)
-    assert mv.dtype == np.uint8 and mv.flags.c_contiguous
-    assert cv.dtype == np.uint8 and cv.flags.c_contiguous
-    got = lib.place_vals_rows(
-        codes.ctypes.data, ctypes.c_int64(codes.shape[1]),
-        ctypes.c_int64(p_src.shape[0]), p_src.ctypes.data,
-        p_off.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
-        p_cnt.ctypes.data, piece_row.ctypes.data,
-        mv.ctypes.data, cv.ctypes.data)
-    return None if got < 0 else int(got)
 
 
 def pileup_native(start, length, count, codes, window_start, n_sites,

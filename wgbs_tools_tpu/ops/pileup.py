@@ -4,15 +4,12 @@ This is the pat2beta hot loop. The reference streams pat text through a C++
 accumulator one line at a time (ref: src/pat2beta/stdin2beta.cpp:59-93):
 cov[site] += count for calls in {C,T,H}, meth[site] += count for {C,H}.
 
-Here fragments are dense device arrays and the pileup is a batched
-scatter-add over the CpG axis. Two implementations:
-
-- `pileup_xla`: jnp scatter-add — the portable reference path (CPU + TPU).
-- `pileup_pallas` (ops/pileup_tpu.py): tiled Pallas kernel that exploits the
-  sorted-by-start invariant to accumulate each site tile in VMEM.
-
-Both operate on a window [window_start, window_start + window_len) of 1-based
-global CpG indices and return int32 (window_len, 2).
+Here fragments are dense device arrays and the pileup is a batched XLA
+scatter-add over the CpG axis (`pileup_xla`); on a GPU the int32 `.at[].add`
+lowers to native atomics, so the counts stay bit-identical to the integer
+reference. Without a GPU, `PileupAccumulator` runs the host C++ kernel
+(native/wgbsio.cpp::pat_pileup). Both operate on a window
+[window_start, window_start + window_len) of 1-based global CpG indices.
 """
 
 from functools import partial
@@ -21,10 +18,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..device import has_gpu
 from ..formats.beta import trim_to_uint
 from ..formats.pat import CODE_C, CODE_DOT, CODE_H, PatFrags
 
 DEFAULT_BATCH = 1 << 20
+
+
+def _bucket(n, lo):
+    """Smallest power of two >= max(n, lo): launch shapes come from a small
+    set, so streaming chunks of varying size reuse a few compiled steps."""
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
 
 
 @partial(jax.jit, static_argnames=("window_len",))
@@ -64,22 +71,34 @@ def pileup_xla(start, length, count, codes, window_start, window_len,
     start: int32[F] 1-based global CpG start indices.
     Returns int32 (window_len, 2) [meth, cov] — numpy if `to_host`, else a
     device array (for callers that keep a device-resident running total).
+    Each batch is padded to a power-of-two fragment count and code width
+    (padding rows have length 0 and add nothing).
     """
     start = np.asarray(start)
+    length = np.asarray(length)
+    count = np.asarray(count)
+    codes = np.asarray(codes)
     F = start.shape[0]
-    total = jnp.zeros((window_len, 2), dtype=jnp.int32)
-    for lo in range(0, max(F, 1), batch):
+    L = codes.shape[1] if codes.ndim == 2 else 0
+    Lb = _bucket(L, 8)
+    total = None
+    for lo in range(0, F, batch):
         hi = min(lo + batch, F)
-        if hi <= lo:
-            break
-        sl = slice(lo, hi)
-        total = total + _pileup_batch_xla(
-            jnp.asarray(start[sl].astype(np.int32) - window_start),
-            jnp.asarray(np.asarray(length)[sl].astype(np.int32)),
-            jnp.asarray(np.asarray(count)[sl].astype(np.int32)),
-            jnp.asarray(np.asarray(codes)[sl]),
-            window_len,
-        )
+        n = hi - lo
+        Fb = min(_bucket(n, 1 << 12), max(batch, n))
+        st = np.zeros(Fb, np.int32)
+        st[:n] = start[lo:hi] - window_start
+        ln = np.zeros(Fb, np.int32)
+        ln[:n] = length[lo:hi]
+        cn = np.zeros(Fb, np.int32)
+        cn[:n] = count[lo:hi]
+        cd = np.full((Fb, Lb), CODE_DOT, np.uint8)
+        cd[:n, :L] = codes[lo:hi]
+        res = _pileup_batch_xla(jnp.asarray(st), jnp.asarray(ln),
+                                jnp.asarray(cn), jnp.asarray(cd), window_len)
+        total = res if total is None else total + res
+    if total is None:
+        total = jnp.zeros((window_len, 2), dtype=jnp.int32)
     return np.asarray(total) if to_host else total
 
 
@@ -105,24 +124,28 @@ class PileupAccumulator:
             # env override applies only to unspecified backends so explicit
             # A/B comparisons (tests, benchmarks) stay meaningful
             backend = os.environ.get("WGBS_TPU_PILEUP") or "auto"
-        if backend == "auto" and device_total is not True \
-                and jax.default_backend() != "tpu":
-            # no accelerator: the C++ host kernel beats the XLA-CPU scatter
-            # and skips staging entirely (bit-identical — integer adds)
-            from ..native import get_lib
+        gpu = has_gpu()
+        if backend == "auto":
+            if gpu or device_total:
+                backend = "xla"
+            else:
+                # no GPU: the C++ host kernel beats the XLA-CPU scatter and
+                # skips staging entirely (bit-identical — integer adds)
+                from ..native import get_lib
 
-            backend = "native" if get_lib() is not None else "xla"
+                backend = "native" if get_lib() is not None else "xla"
+        if backend not in ("xla", "native"):
+            raise ValueError(f"unknown pileup backend: {backend}")
         self.backend = backend
         self.batch = batch
         self.min_span = min_span
         if device_total is None:
-            device_total = (jax.default_backend() == "tpu"
-                            and backend != "native")
-        self.device_total = device_total and backend != "native"
+            device_total = gpu
+        self.device_total = bool(device_total) and backend != "native"
         if self.device_total:
-            # running total stays in HBM; add() folds each batch in place
-            # (donated buffer) and only finalize()/result() cross back to the
-            # host — per-batch d2h round-trips disappear entirely.
+            # running total stays in device memory; add() folds each batch
+            # in place (donated buffer) and only finalize()/result() cross
+            # back to the host.
             self.total = jnp.zeros((self.n, 2), dtype=jnp.int32)
         else:
             self.total = np.zeros((self.n, 2), dtype=np.int64)
@@ -144,17 +167,14 @@ class PileupAccumulator:
             if pileup_native(st, sel.length, sel.count, sel.codes, s,
                              self.n, out=self.total, threads=thr) is not None:
                 return
-            self.backend = "xla"  # library unavailable: sticky fallback
+            self.backend = "xla"  # library unavailable: host XLA scatter
         lo = max(int(sel.start.min()), s)
         hi = min(int((sel.start.astype(np.int64) + sel.length).max()), e)
-        span = max(hi - lo, 1)
-        n_pad = self.min_span
-        while n_pad < span:
-            n_pad <<= 1
-        n_pad = min(n_pad, self.n)
+        n_pad = min(_bucket(max(hi - lo, 1), self.min_span), self.n)
         lo = min(lo, e - n_pad)
-        res = pileup_frags(sel, (lo, lo + n_pad), backend=self.backend,
-                           batch=self.batch, to_host=not self.device_total)
+        res = pileup_xla(sel.start, sel.length, sel.count, sel.codes, lo,
+                         n_pad, batch=self.batch,
+                         to_host=not self.device_total)
         if self.device_total:
             self.total = _fold_at(self.total, jnp.asarray(res),
                                   np.int32(lo - s))
@@ -171,7 +191,7 @@ class PileupAccumulator:
         """Saturated uint8/uint16 (n, 2) beta array, exact reference
         semantics (ref: utils_wgbs.py:277-290).
 
-        On a device total, the saturation runs on the chip and only the
+        On a device total, the saturation runs on the device and only the
         (4x smaller) uint8 table plus the rare coverage-overflow rows cross
         back to the host — the overflow rows are re-saturated there with the
         reference's float64 chain, so the result is byte-identical to
@@ -237,12 +257,8 @@ def saturate_device_counts(total, lbeta=False, cap=1 << 20,
 
 
 def fetch_chunked(x, max_bytes=8 << 20):
-    """Device -> host fetch in bounded row slabs.
-
-    Keeps each transfer small (large single fetches are pathological over
-    tunneled transports and spike host memory twice on any transport) and
-    reuses one compiled slice shape for all full slabs.
-    """
+    """Device -> host fetch in bounded row slabs into one preallocated
+    host array (one compiled slice shape serves all full slabs)."""
     x_np = np.empty(x.shape, np.dtype(x.dtype.name))
     row_bytes = max(int(x_np.itemsize * np.prod(x.shape[1:], initial=1)), 1)
     step = max(int(max_bytes) // row_bytes, 1)
@@ -257,42 +273,14 @@ def fetch_chunked(x, max_bytes=8 << 20):
     return x_np
 
 
-def pileup_frags(frags: PatFrags, window, backend="auto",
+def pileup_frags(frags: PatFrags, window, backend="xla",
                  batch=DEFAULT_BATCH, **kw):
-    """Pileup a PatFrags batch over a 1-based [s, e) site window.
-
-    backend: "pallas3" = row-packed TPU kernel (fastest; falls back to v2
-    without the native packer), "pallas2" = sub-block grouped TPU kernel,
-    "pallas" = tile/halo TPU kernel, "xla" = scatter path; "auto" picks
-    pallas3 on TPU, xla elsewhere. to_host=False returns a device array.
-    `batch` bounds the xla path's per-launch fragment count (the Pallas
-    kernels chunk internally).
-    """
+    """Pileup a PatFrags batch over a 1-based [s, e) site window with the
+    XLA scatter (`backend` "auto" means the same). to_host=False returns a
+    device array; `batch` bounds the per-launch fragment count."""
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"unknown pileup backend: {backend}")
     s, e = window
-    n = e - s
     sel = frags.slice_sites(s, e, min_overlap=1) if frags.nr_frags else frags
-    if backend == "auto":
-        backend = "pallas3" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas3":
-        from .pileup_tpu3 import pileup_pallas_v3
-
-        return pileup_pallas_v3(
-            sel.start, sel.length, sel.count, sel.codes, s, n, **kw
-        )
-    if backend == "pallas2":
-        from .pileup_tpu2 import pileup_pallas_v2
-
-        return pileup_pallas_v2(
-            sel.start, sel.length, sel.count, sel.codes, s, n, **kw
-        )
-    if backend == "pallas":
-        from .pileup_tpu import pileup_pallas
-
-        return pileup_pallas(
-            sel.start, sel.length, sel.count, sel.packed(), s, n, **kw
-        )
-    return pileup_xla(sel.start, sel.length, sel.count, sel.codes, s, n,
+    return pileup_xla(sel.start, sel.length, sel.count, sel.codes, s, e - s,
                       batch=batch, **kw)
-
-
-

@@ -2,7 +2,8 @@
 
 Replaces the reference's `np.add.reduceat` fast path and per-row slow path
 (ref: src/python/beta_to_blocks.py:101-116) with a device segment-sum so the
-same op serves beta_to_blocks, beta_to_table and find_markers chunks on TPU.
+same op serves beta_to_blocks, beta_to_table and find_markers chunks on the
+device.
 Blocks may be arbitrary (unsorted, overlapping -> slow path semantics are
 identical because each block sums independently over its [startCpG, endCpG)).
 """

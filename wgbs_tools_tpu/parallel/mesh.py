@@ -2,7 +2,7 @@
 
 The reference's parallelism is a multiprocessing Pool sharded by chromosome
 or 60k-site chunk with order-preserving concat (ref: src/python/bam2pat.py:
-303-356, segment.py:137-155). The TPU mapping: a 2-D mesh with a `sites`
+303-356, segment.py:137-155). The device mapping: a 2-D mesh with a `sites`
 axis (contiguous CpG-index ranges per device, the analogue of
 chromosome/chunk sharding) and a `samples` axis (beta files / datasets), with
 XLA collectives replacing the filesystem merges:

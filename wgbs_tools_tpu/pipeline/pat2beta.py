@@ -4,19 +4,20 @@ Reference flow (ref: src/python/pat2beta.py:14-65): per-chromosome
 `tabix | stdin2beta` processes in a Pool, concatenated with numpy and
 saturated to uint8. Here the pat file streams through bounded-memory chunks
 (formats/pat.py::iter_pat — BGZF slabs inflated by the multithreaded native
-decompressor) and each chunk piles up on device; with more than one visible
-device the count table lives sharded over the `sites` axis of a mesh —
-on TPU meshes each shard runs the v3 row-packed Pallas kernel on
-boundary-clipped fragments (parallel/sharded.py::ShardedPileupV3, 93.5%
-of the single-chip flat-grid rate); the halo-ppermute scatter form
-(ShardedPileup) remains for CPU meshes and A/B. Counts are integer adds,
-so every path is bit-identical to the reference pileup.
+decompressor) and each chunk piles up on the GPU (or in the host C++
+kernel when there is none); with more than one visible device the count
+table lives sharded over the `sites` axis of a mesh — on GPUs each shard
+runs the XLA scatter on boundary-clipped fragments
+(parallel/sharded.py::ShardedPileupV3); the halo-ppermute scatter form
+(ShardedPileup) serves CPU meshes and A/B. Counts are integer adds, so
+every path is bit-identical to the reference pileup.
 """
 
 import os.path as op
 
 import jax
 
+from ..device import has_gpu
 from ..formats.pat import iter_pat
 from ..ops.pileup import PileupAccumulator
 from ..utils import splitextgz
@@ -40,14 +41,11 @@ def _accumulate_pat(pat_path, nr_sites, backend="auto", sharded=None,
         from ..parallel.mesh import make_mesh
         from ..parallel.sharded import ShardedPileup, ShardedPileupV3
 
-        # WGBS_TPU_SHARDED_PILEUP: v3 (row-packed Pallas kernel per shard,
-        # boundary-clipped — the single-chip headline kernel), halo (XLA
-        # scatter + ppermute halo), auto (default: v3 on TPU where the
-        # Mosaic kernel compiles natively; halo on CPU meshes, where
-        # interpret-mode Pallas would be the slowest path in the room)
+        # WGBS_TPU_SHARDED_PILEUP: v3 (boundary-clipped scatter per
+        # device), halo (one shard_map scatter + ppermute halo), auto
+        # (default: v3 on GPUs, halo on CPU meshes)
         mode = os.environ.get("WGBS_TPU_SHARDED_PILEUP", "auto")
-        if mode == "v3" or (mode == "auto"
-                            and jax.default_backend() == "tpu"):
+        if mode == "v3" or (mode == "auto" and has_gpu()):
             acc = ShardedPileupV3(make_mesh(), window)
         else:
             acc = ShardedPileup(make_mesh(), window)
