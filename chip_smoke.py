@@ -20,7 +20,7 @@ against the host paths. Run from the repository root:
    of borders.
 4. bam2pat of a 200,000-pair BAM: device calling (the GPU default) and host
    calling write identical pat.gz files.
-5. (--cards 4 only) hg19 pat2beta sharded over four cards, and
+5. (--cards 4 only) hg19 `pat2beta --sharded` over four cards, and
    `pat2beta --procs 4` / `segment --procs 4` (one card per process),
    each equal to the one-card output.
 
@@ -462,13 +462,10 @@ def phase4(work, seed, sizes):
 
 def phase5(work, seed, sizes, rehearse):
     """Multi-process runs first, while this process holds no card."""
-    from wgbs_tools_tpu.pipeline.pat2beta import pat2beta
-    from wgbs_tools_tpu.genome.refdir import Genome
-
     pat = make_hg19(work, seed, sizes)
     betas = make_segment_data(work, seed, sizes["seg_sites"])
     d = op.join(work, "p5")
-    for sub in ("procs", "sharded"):
+    for sub in ("procs", "sharded", "one"):
         os.makedirs(op.join(d, sub))
     procs = ["--procs", "4"]
     t_pp = cli("pat2beta", pat, "-o", op.join(d, "procs"), "--genome",
@@ -483,25 +480,29 @@ def phase5(work, seed, sizes, rehearse):
     from wgbs_tools_tpu.parallel import sharded
 
     used = []
-    orig_add = sharded.ShardedPileupV3.add
+    orig_add = sharded.ShardedPileup.add
 
     def add(self, frags):
         used.append(len(self.devices))
         return orig_add(self, frags)
 
-    sharded.ShardedPileupV3.add = add
+    sharded.ShardedPileup.add = add
     t_sh = cli("pat2beta", pat, "-o", op.join(d, "sharded"), "--genome",
-               "hg19sim")
+               "hg19sim", "--sharded")
     t_sh2 = cli("pat2beta", pat, "-o", op.join(d, "sharded"), "--genome",
-                "hg19sim", "-f")
+                "hg19sim", "--sharded", "-f")
+    check(used and set(used) == {4} and not seen,
+          "phase 5: pat2beta --sharded piled up over four cards")
+    t_one = cli("pat2beta", pat, "-o", op.join(d, "one"), "--genome",
+                "hg19sim")
+    t_one2 = cli("pat2beta", pat, "-o", op.join(d, "one"), "--genome",
+                 "hg19sim", "-f")
+    one = op.join(d, "one", "hg19.beta")
+    log(f"plain pat2beta accumulators: {seen}")
     if not rehearse:
-        check(used and set(used) == {4},
-              "phase 5: plain pat2beta sharded over four cards")
-    t0 = time.perf_counter()
-    one = pat2beta(pat, genome=Genome("hg19sim"), sharded=False,
-                   out_path=op.join(d, "one.beta"))
-    t_one = time.perf_counter() - t0
-    log(f"one-card accumulator: {seen}")
+        check(len(seen) == 2 and all(
+            s["device_total"] and s["platforms"] == ["gpu"] for s in seen),
+            "phase 5: plain pat2beta on a four-card host used one card")
     check(same_bytes(op.join(d, "sharded", "hg19.beta"), one),
           "phase 5: 4-card sharded beta byte-identical to one card")
     check(same_bytes(op.join(d, "procs", "hg19.beta"), one),
@@ -509,12 +510,14 @@ def phase5(work, seed, sizes, rehearse):
     t_s1 = cli(*seg, "-o", op.join(d, "seg_one.bed"))
     check(same_bytes(op.join(d, "seg_procs.bed"), op.join(d, "seg_one.bed")),
           "phase 5: segment --procs 4 identical to one process")
-    log(f"four cards: pat2beta sharded {t_sh:.2f} s (cold) / {t_sh2:.2f} s "
-        f"(warm), one card {t_one:.2f} s (warm), --procs 4 {t_pp:.2f} s; "
-        f"segment --procs 4 {t_sp:.2f} s, one process {t_s1:.2f} s")
+    log(f"four cards: pat2beta --sharded {t_sh:.2f} s (cold) / {t_sh2:.2f} s "
+        f"(warm), one card {t_one:.2f} s (cold) / {t_one2:.2f} s (warm), "
+        f"--procs 4 {t_pp:.2f} s; segment --procs 4 {t_sp:.2f} s, one "
+        f"process {t_s1:.2f} s")
     RESULTS["four_cards"] = {"pat2beta_sharded_cold_s": t_sh,
                              "pat2beta_sharded_warm_s": t_sh2,
-                             "pat2beta_one_card_s": t_one,
+                             "pat2beta_one_card_cold_s": t_one,
+                             "pat2beta_one_card_warm_s": t_one2,
                              "pat2beta_procs4_s": t_pp,
                              "segment_procs4_s": t_sp,
                              "segment_one_s": t_s1}

@@ -41,3 +41,18 @@ def test_chip_smoke_rehearsal(tmp_path):
     assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
     assert r.stdout.count("PASS ") >= 12
     assert "rehearsal ok" in r.stdout and '"ok"' not in r.stdout
+
+
+def test_chip_smoke_rehearsal_four_cards(tmp_path):
+    """The four-card phase on four virtual CPU devices: `pat2beta
+    --sharded`, plain pat2beta, `pat2beta --procs 4` and `segment --procs
+    4` all byte-identical."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    r = subprocess.run(
+        [sys.executable, op.join(ROOT, "chip_smoke.py"), "--rehearse",
+         "--cards", "4", "--workdir", str(tmp_path / "w")],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+    assert r.stdout.count("PASS phase 5") == 4
+    assert "rehearsal ok" in r.stdout and '"ok"' not in r.stdout

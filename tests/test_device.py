@@ -4,6 +4,7 @@ are chosen and a device failure raises instead of falling back."""
 
 import os
 
+import jax
 import numpy as np
 import pytest
 
@@ -15,7 +16,7 @@ from wgbs_tools_tpu import device
 def plat(request, monkeypatch):
     monkeypatch.setattr(device, "platform", lambda: request.param)
     for k in ("WGBS_TPU_PILEUP", "WGBS_TPU_DEVICE_CALLING",
-              "WGBS_TPU_SEGMENT_EXACT_DEVICE", "WGBS_TPU_SHARDED_PILEUP"):
+              "WGBS_TPU_SEGMENT_EXACT_DEVICE"):
         monkeypatch.delenv(k, raising=False)
     return request.param
 
@@ -39,9 +40,7 @@ def test_pileup_accumulator_choice(plat):
 def test_exact_segment_device_choice(plat, monkeypatch):
     from wgbs_tools_tpu.models.segment import _use_exact_device
 
-    assert _use_exact_device() is False  # host C++ by default
-    monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "auto")
-    assert _use_exact_device() is (plat == "gpu")
+    assert _use_exact_device() is False  # host C++ by default, GPU or not
     monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "0")
     assert _use_exact_device() is False
     monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "1")
@@ -49,18 +48,23 @@ def test_exact_segment_device_choice(plat, monkeypatch):
 
 
 def test_sharded_pileup_choice(plat, monkeypatch, tmp_path):
-    """pat2beta on several devices: the clipped per-device scatter on
-    GPUs, the halo shard_map form on CPU meshes."""
+    """pat2beta on several devices: one device's accumulator unless
+    sharding is asked for, then the clipped per-device scatter on every
+    platform."""
     from wgbs_tools_tpu.formats.pat import write_pat
+    from wgbs_tools_tpu.ops.pileup import PileupAccumulator
     from wgbs_tools_tpu.parallel import sharded
     from wgbs_tools_tpu.pipeline.pat2beta import _accumulate_pat
 
+    assert len(jax.devices()) > 1
     frags = random_frags(np.random.default_rng(3), 300, 4000, max_len=8)
     pat = str(tmp_path / "s.pat.gz")
     write_pat(frags, pat)
+    acc, nf = _accumulate_pat(pat, 4096)
+    assert type(acc) is PileupAccumulator and nf == frags.nr_frags
     acc, nf = _accumulate_pat(pat, 4096, sharded=True)
-    want = sharded.ShardedPileupV3 if plat == "gpu" else sharded.ShardedPileup
-    assert type(acc) is want and nf == frags.nr_frags
+    assert type(acc) is sharded.ShardedPileup and nf == frags.nr_frags
+    assert acc.n_shards == len(jax.devices())
 
 
 def _boom(*a, **k):
@@ -86,7 +90,7 @@ def test_gpu_exact_segment_failure_raises(monkeypatch, tmp_path):
     from wgbs_tools_tpu.models.segment import SegmentConfig, segment_ranges
 
     monkeypatch.setattr(device, "platform", lambda: "gpu")
-    monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "auto")
+    monkeypatch.setenv("WGBS_TPU_SEGMENT_EXACT_DEVICE", "1")
     monkeypatch.setattr(segment, "DEVICE_EXACT_MIN_SITES", 2)
     monkeypatch.setattr(segment_exact_tpu, "segment_exact_device_batch",
                         _boom)

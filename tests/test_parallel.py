@@ -127,13 +127,15 @@ def test_segment_windows_sharded_matches_single_device(rng):
 
 
 def test_sharded_pileup_streaming_matches_xla(rng, tmp_path):
-    """ShardedPileup over streamed chunks == one-shot single-device pileup."""
+    """ShardedPileup over streamed chunks == one-shot single-device pileup,
+    with fragments longer than a shard crossing several boundaries."""
     from wgbs_tools_tpu.parallel.sharded import ShardedPileup
 
-    n_sites = 40000
-    frags = random_frags(rng, 5000, n_sites - 50, max_len=18).sort().collapse()
+    n_sites = 400
+    frags = random_frags(rng, 3000, n_sites - 120, max_len=120).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileup(mesh, (1, n_sites + 1), halo=32, fp_mult=64)
+    acc = ShardedPileup(mesh, (1, n_sites + 1))
+    assert acc.S == 50 and int(frags.length.max()) > 2 * acc.S
     # stream in uneven chunks
     bounds = [0, 700, 1100, 2500, frags.nr_frags]
     for a, b in zip(bounds[:-1], bounds[1:]):
@@ -145,25 +147,24 @@ def test_sharded_pileup_streaming_matches_xla(rng, tmp_path):
 
 
 def test_sharded_pileup_v3_streaming_matches_xla(rng):
-    """ShardedPileupV3 (XLA scatter per shard, boundary-clipped, no halo)
-    over streamed chunks == one-shot single-device pileup, and == the
-    halo-exchange ShardedPileup."""
-    from wgbs_tools_tpu.parallel.sharded import ShardedPileup, ShardedPileupV3
+    """ShardedPileup (XLA scatter per shard, boundary-clipped, no halo)
+    over streamed chunks == one-shot single-device pileup, each shard's
+    total on its own device."""
+    from wgbs_tools_tpu.parallel.sharded import ShardedPileup
 
     n_sites = 40000
     frags = random_frags(rng, 5000, n_sites - 50, max_len=18).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="xla")
-    ref = ShardedPileup(mesh, (1, n_sites + 1), halo=32, fp_mult=64)
+    acc = ShardedPileup(mesh, (1, n_sites + 1))
     bounds = [0, 700, 1100, 2500, frags.nr_frags]
     for a, b in zip(bounds[:-1], bounds[1:]):
         acc.add(frags.take(np.arange(a, b)))
-        ref.add(frags.take(np.arange(a, b)))
+    assert [t.devices() for t in acc.totals] == [{d} for d in acc.devices]
+    assert len(set(acc.devices)) == 8
     got = acc.result()
     expect = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
                         1, n_sites)
     assert (got == expect).all()
-    assert (ref.result() == expect).all()
     # finalize (device saturation over the assembled sharded table)
     from wgbs_tools_tpu.formats.beta import trim_to_uint
 
@@ -173,12 +174,12 @@ def test_sharded_pileup_v3_streaming_matches_xla(rng):
 
 def test_sharded_pileup_v3_uneven_tail(rng):
     """Last shard shorter than S (n not divisible by the shard count)."""
-    from wgbs_tools_tpu.parallel.sharded import ShardedPileupV3
+    from wgbs_tools_tpu.parallel.sharded import ShardedPileup
 
     n_sites = 40000 - 1234
     frags = random_frags(rng, 3000, n_sites - 30, max_len=12).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileupV3(mesh, (1, n_sites + 1), backend="xla")
+    acc = ShardedPileup(mesh, (1, n_sites + 1))
     acc.add(frags)
     expect = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
                         1, n_sites)
@@ -286,7 +287,7 @@ def test_sharded_pileup_finalize_exact(rng):
     frags = random_frags(rng, 8000, n_sites - 50, max_len=18,
                          max_count=40).sort().collapse()
     mesh = make_mesh(8, samples_axis=1)
-    acc = ShardedPileup(mesh, (1, n_sites + 1), halo=32, fp_mult=64)
+    acc = ShardedPileup(mesh, (1, n_sites + 1))
     acc.add(frags)
     counts = acc.result()
     assert (counts[:, 1] > 255).any()  # the overflow path is exercised
@@ -298,15 +299,15 @@ def test_sharded_pileup_finalize_exact(rng):
 
 
 def test_sharded_pileup_replicated_samples_axis(rng):
-    """On a (samples=2, sites=4) mesh the count table is replicated over
-    samples: the per-shard fetch and saturation take each row range once."""
+    """On a (samples=2, sites=4) mesh every device still takes one site
+    range: eight shards, each fetched and saturated once."""
     from wgbs_tools_tpu.formats.beta import trim_to_uint
     from wgbs_tools_tpu.parallel.sharded import ShardedPileup
 
     n_sites = 20000
     frags = random_frags(rng, 3000, n_sites - 30, max_len=12).sort().collapse()
-    acc = ShardedPileup(make_mesh(8, samples_axis=2), (1, n_sites + 1),
-                        halo=32, fp_mult=64)
+    acc = ShardedPileup(make_mesh(8, samples_axis=2), (1, n_sites + 1))
+    assert acc.n_shards == 8 and acc.S == 2500
     acc.add(frags)
     expect = pileup_xla(frags.start, frags.length, frags.count, frags.codes,
                         1, n_sites)

@@ -64,7 +64,7 @@ def test_pileup_oracle_subwindow(rng):
     start, end = 2000, 4000
     expect = ref_pileup(frags, start, end)
     got = np.asarray(
-        pileup_frags(frags, (start, end), backend="xla")
+        pileup_frags(frags, (start, end))
     )
     assert (got == expect).all()
 

@@ -230,7 +230,7 @@ def test_real_beta_values_golden(tut):
     g = tut["glob3"]
     frags, _, _ = bam2pat(op.join(BAM_DIR, "Pancreas_STL002.small.bam"),
                           genome=g, write_output=False)
-    counts = pileup_frags(frags, (5394767, 5394777), backend="xla")
+    counts = pileup_frags(frags, (5394767, 5394777))
     golden = np.array([
         [17, 17], [21, 23], [12, 14], [8, 8], [4, 5],
         [3, 4], [1, 4], [5, 5], [5, 5], [4, 4],
@@ -258,7 +258,7 @@ def tut_betas(tut, tmp_path_factory):
         name = bam[: -len(".small.bam")] + ".small"
         frags, _, _ = bam2pat(op.join(BAM_DIR, bam), genome=g,
                               write_output=False)
-        counts = pileup_frags(frags, (1, g.index.nr_sites + 1), backend="xla")
+        counts = pileup_frags(frags, (1, g.index.nr_sites + 1))
         beta = op.join(d, name + ".beta")
         trim_to_uint(np.asarray(counts)).tofile(beta)
         out[name] = {"frags": frags, "beta": beta}

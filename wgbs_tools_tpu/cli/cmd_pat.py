@@ -45,6 +45,10 @@ def main_pat2beta(argv):
                         "on a GPU host (per-process input sharding by site "
                         "range; byte-identical to the single-process "
                         "path)")
+    p.add_argument("--sharded", action="store_true",
+                   help="pile up over every visible GPU, one site range "
+                        "per card (byte-identical; not faster than one "
+                        "card while decode bounds the job)")
     args = p.parse_args(argv)
     g = Genome(args.genome)
     for pat in args.pat_paths:
@@ -62,7 +66,8 @@ def main_pat2beta(argv):
             logger.info("pat2beta: %s -> %s (%d processes)", pat, out,
                         args.procs)
             continue
-        pat2beta(pat, args.out_dir, genome=g, lbeta=args.lbeta)
+        pat2beta(pat, args.out_dir, genome=g, lbeta=args.lbeta,
+                 sharded=args.sharded)
     return 0
 
 

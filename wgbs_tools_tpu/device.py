@@ -1,9 +1,10 @@
 """Where device work runs: the one placement decision of the package.
 
-With a GPU, every device path (pileup, sharded pileup, exact segmentation,
-bam2pat calling) runs on the card and a device failure raises. Without
-one, the host C++ paths run. Callers ask `has_gpu()`; tests mock
-`platform()`.
+With a GPU, the pat2beta pileup and bam2pat calling run on the card by
+default; exact segmentation (WGBS_TPU_SEGMENT_EXACT_DEVICE=1) and the
+multi-card pileup (`pat2beta --sharded`) run there when asked for, being
+no faster on an H100 host. A device failure raises. Without a GPU, the
+host C++ paths run. Callers ask `has_gpu()`; tests mock `platform()`.
 """
 
 import subprocess

@@ -273,13 +273,10 @@ def fetch_chunked(x, max_bytes=8 << 20):
     return x_np
 
 
-def pileup_frags(frags: PatFrags, window, backend="xla",
-                 batch=DEFAULT_BATCH, **kw):
+def pileup_frags(frags: PatFrags, window, batch=DEFAULT_BATCH, **kw):
     """Pileup a PatFrags batch over a 1-based [s, e) site window with the
-    XLA scatter (`backend` "auto" means the same). to_host=False returns a
-    device array; `batch` bounds the per-launch fragment count."""
-    if backend not in ("auto", "xla"):
-        raise ValueError(f"unknown pileup backend: {backend}")
+    XLA scatter. to_host=False returns a device array; `batch` bounds the
+    per-launch fragment count."""
     s, e = window
     sel = frags.slice_sites(s, e, min_overlap=1) if frags.nr_frags else frags
     return pileup_xla(sel.start, sel.length, sel.count, sel.codes, s, e - s,

@@ -5,19 +5,19 @@ Reference flow (ref: src/python/pat2beta.py:14-65): per-chromosome
 saturated to uint8. Here the pat file streams through bounded-memory chunks
 (formats/pat.py::iter_pat — BGZF slabs inflated by the multithreaded native
 decompressor) and each chunk piles up on the GPU (or in the host C++
-kernel when there is none); with more than one visible device the count
-table lives sharded over the `sites` axis of a mesh — on GPUs each shard
-runs the XLA scatter on boundary-clipped fragments
-(parallel/sharded.py::ShardedPileupV3); the halo-ppermute scatter form
-(ShardedPileup) serves CPU meshes and A/B. Counts are integer adds, so
-every path is bit-identical to the reference pileup.
+kernel when there is none). With sharded=True (CLI `--sharded`) the
+count table is split by site range over every visible device, each shard
+running the XLA scatter on boundary-clipped fragments
+(parallel/sharded.py::ShardedPileup). That is opt-in: the job is bound
+by host decode, and on a four-H100 host the sharded job measured slower
+than one card (PERF.md). Counts are integer adds, so every path is
+bit-identical to the reference pileup.
 """
 
 import os.path as op
 
 import jax
 
-from ..device import has_gpu
 from ..formats.pat import iter_pat
 from ..ops.pileup import PileupAccumulator
 from ..utils import splitextgz
@@ -28,27 +28,16 @@ from ..utils.log import logger
 DEF_CHUNK_BYTES = 32 << 20
 
 
-def _accumulate_pat(pat_path, nr_sites, backend="auto", sharded=None,
+def _accumulate_pat(pat_path, nr_sites, backend="auto", sharded=False,
                     chunk_bytes=DEF_CHUNK_BYTES):
     """Stream a pat file into a pileup accumulator. Returns
     (accumulator, nr_frags)."""
     window = (1, nr_sites + 1)
-    if sharded is None:
-        sharded = len(jax.devices()) > 1
     if sharded and len(jax.devices()) > 1:
-        import os
-
         from ..parallel.mesh import make_mesh
-        from ..parallel.sharded import ShardedPileup, ShardedPileupV3
+        from ..parallel.sharded import ShardedPileup
 
-        # WGBS_TPU_SHARDED_PILEUP: v3 (boundary-clipped scatter per
-        # device), halo (one shard_map scatter + ppermute halo), auto
-        # (default: v3 on GPUs, halo on CPU meshes)
-        mode = os.environ.get("WGBS_TPU_SHARDED_PILEUP", "auto")
-        if mode == "v3" or (mode == "auto" and has_gpu()):
-            acc = ShardedPileupV3(make_mesh(), window)
-        else:
-            acc = ShardedPileup(make_mesh(), window)
+        acc = ShardedPileup(make_mesh(), window)
     else:
         acc = PileupAccumulator(window, backend=backend)
     nf = 0
@@ -79,7 +68,7 @@ def _accumulate_pat(pat_path, nr_sites, backend="auto", sharded=None,
 
 
 def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="auto",
-             force=True, out_path=None, sharded=None,
+             force=True, out_path=None, sharded=False,
              chunk_bytes=DEF_CHUNK_BYTES):
     """Convert a pat[.gz] file to a beta/lbeta file. Returns the output path."""
     from ..genome.refdir import Genome
@@ -99,7 +88,7 @@ def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="auto",
     return out_path
 
 
-def pat2beta_counts(pat_path, nr_sites, backend="auto", sharded=None):
+def pat2beta_counts(pat_path, nr_sites, backend="auto", sharded=False):
     """Raw (nr_sites, 2) int counts (pre-saturation) for a pat file."""
     acc, _ = _accumulate_pat(pat_path, nr_sites, backend=backend,
                              sharded=sharded)
